@@ -1,6 +1,6 @@
 // meshkernel: native 2-D Delaunay triangulation + Laplacian smoothing.
 //
-// The TPU-native framework's replacement for the reference study's native
+// The JAX framework's replacement for the reference study's native
 // mesher (Gmsh, invoked as a C++ subprocess in the reference's mesh.py).
 // Incremental Bowyer-Watson with:
 //   - Hilbert-curve insertion order (locality => near-linear point location)

@@ -2,7 +2,7 @@
 FEniCS goldens, emitting markdown tables for PARITY.md.
 
 Usage: python scripts/compare_goldens.py [--ref /root/reference]
-Reads examples/<study>_tpu_h0.02 outputs; prints one table per study
+Reads examples/<study>_h0.02 outputs; prints one table per study
 with per-row deltas on the headline columns.
 """
 import argparse
@@ -331,7 +331,7 @@ def compare_phase_a(ours_dir, ref_root):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ref", default=REF)
-    ap.add_argument("--tag", default="tpu_h0.02")
+    ap.add_argument("--tag", default="h0.02")
     args = ap.parse_args()
     t = args.tag
     if os.path.isdir(f"examples/advdiff_{t}"):

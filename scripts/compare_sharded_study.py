@@ -8,11 +8,11 @@ analogue: the latent MPI capability scoped in SURVEY.md section 2.3
 (the FEniCS original runs serially).
 
 Usage:
-    python -m fenics_eff_uptake_tpu.studies.phase_b run --shard 8 --tp 2 \
+    python -m fenics_eff_uptake.studies.phase_b run --shard 8 --tp 2 \
         --output-base /tmp/pb_shard_full
     python scripts/compare_sharded_study.py /tmp/pb_shard_full
 
-    python -m fenics_eff_uptake_tpu.studies.adv_diff run --shard 8 \
+    python -m fenics_eff_uptake.studies.adv_diff run --shard 8 \
         --tp 2 --output-base /tmp/ad_shard_full
     python scripts/compare_sharded_study.py /tmp/ad_shard_full advdiff
 """
@@ -30,7 +30,7 @@ STUDIES = {
     "phase_b": {
         "csv_rel": os.path.join("mu Sweep Analysis",
                                 "no_adv_mu_sweep_results.csv"),
-        "committed": os.path.join(REPO, "examples", "phase_b_tpu_h0.02",
+        "committed": os.path.join(REPO, "examples", "phase_b_h0.02",
                                   "mu Sweep Analysis",
                                   "no_adv_mu_sweep_results.csv"),
         "keys": ["geometry", "mu_factor"],
@@ -42,7 +42,7 @@ STUDIES = {
     "advdiff": {
         "csv_rel": os.path.join("Results Data",
                                 "advdiff_validation_step_pe_x_mu.csv"),
-        "committed": os.path.join(REPO, "examples", "advdiff_tpu_h0.02",
+        "committed": os.path.join(REPO, "examples", "advdiff_h0.02",
                                   "Results Data",
                                   "advdiff_validation_step_pe_x_mu.csv"),
         "keys": ["Pe", "mu_factor", "domain_type"],
@@ -59,7 +59,7 @@ STUDIES = {
     "no_uptake": {
         "csv_rel": os.path.join("Geometry Comparison Analysis",
                                 "geometry_comparison_results.csv"),
-        "committed": os.path.join(REPO, "examples", "no_uptake_tpu_h0.02",
+        "committed": os.path.join(REPO, "examples", "no_uptake_h0.02",
                                   "Geometry Comparison Analysis",
                                   "geometry_comparison_results.csv"),
         "keys": ["Domain", "Peclet", "Sulcus Width (mm)",

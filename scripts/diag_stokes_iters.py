@@ -16,12 +16,12 @@ WIDTH_S = float(sys.argv[3]) if len(sys.argv) > 3 else 0.25
 
 
 def main():
-    from fenics_eff_uptake_tpu.utils.jaxconfig import setup
+    from fenics_eff_uptake.utils.jaxconfig import setup
     jax = setup(x64=True)
     jax.config.update("jax_platforms", "cpu")
 
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.models import stokes_flow
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.models import stokes_flow
 
     mesh = generate_mesh(width=10.0, height=1.0, sulcus_depth=DEPTH,
                          sulcus_width=WIDTH_S, mesh_size=MESH_SIZE,

@@ -36,16 +36,16 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from fenics_eff_uptake_tpu.utils.jaxconfig import setup
+from fenics_eff_uptake.utils.jaxconfig import setup
 setup(x64=True)   # the study artifacts run with x64 (run_no_uptake_extra)
 
-from fenics_eff_uptake_tpu.studies.no_uptake import _make_params
-from fenics_eff_uptake_tpu.simulation import get_mesh
-from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve
-from fenics_eff_uptake_tpu.parallel.sweep import (build_transport_system,
+from fenics_eff_uptake.studies.no_uptake import _make_params
+from fenics_eff_uptake.simulation import get_mesh
+from fenics_eff_uptake.models.stokes_flow import stokes_solve
+from fenics_eff_uptake.parallel.sweep import (build_transport_system,
                                                   solve_sweep)
-from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel_for
-from fenics_eff_uptake_tpu.analysis.batched_metrics import (
+from fenics_eff_uptake.solvers.multilevel import build_multilevel_for
+from fenics_eff_uptake.analysis.batched_metrics import (
     build_sweep_metrics, metrics_to_dicts)
 
 GOLDEN_CSV = ("/root/reference/No Uptake Simulations/"

@@ -1,5 +1,5 @@
 """Merge extra no-uptake geometry runs (/tmp/nu_extra/<g>/...) into the
-committed examples/no_uptake_tpu_h0.02 combined CSV.
+committed examples/no_uptake_h0.02 combined CSV.
 
 Sulcus rows from each extra run are appended (deduped on
 width/depth/Pe); rectangle baseline rows are kept from the committed
@@ -13,7 +13,7 @@ from glob import glob
 import numpy as np
 import pandas as pd
 
-MAIN = ("examples/no_uptake_tpu_h0.02/Geometry Comparison Analysis/"
+MAIN = ("examples/no_uptake_h0.02/Geometry Comparison Analysis/"
         "geometry_comparison_results.csv")
 
 

@@ -39,7 +39,7 @@ MU_FACTORS = [0.1, 1.0, 10.0]
 
 
 def compute():
-    from fenics_eff_uptake_tpu.studies.common import (make_no_adv_params,
+    from fenics_eff_uptake.studies.common import (make_no_adv_params,
                                                       no_adv_batch)
     geom = make_no_adv_params(1.0,
                               sulci_w_dim=META["geometry"]["w"],

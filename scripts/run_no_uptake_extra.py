@@ -14,9 +14,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 
 def main():
-    from fenics_eff_uptake_tpu.utils.jaxconfig import setup
+    from fenics_eff_uptake.utils.jaxconfig import setup
     setup(x64=True)
-    from fenics_eff_uptake_tpu.studies.no_uptake import run_geometry_study
+    from fenics_eff_uptake.studies.no_uptake import run_geometry_study
     for g in sys.argv[1:]:
         t0 = time.time()
         try:

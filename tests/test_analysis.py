@@ -7,17 +7,17 @@ flux identities, Robin consistency, maximum principle) to assertions.
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.analysis.flux import (compute_flux_metrics,
+from fenics_eff_uptake.analysis.flux import (compute_flux_metrics,
                                                  compute_uptake_flux_bottom)
-from fenics_eff_uptake_tpu.analysis.mass import compute_mass_metrics
-from fenics_eff_uptake_tpu.analysis.mu_eff import (compute_mu_eff_metrics,
+from fenics_eff_uptake.analysis.mass import compute_mass_metrics
+from fenics_eff_uptake.analysis.mu_eff import (compute_mu_eff_metrics,
                                                    sulcus_arc_length)
-from fenics_eff_uptake_tpu.analysis.profiles import (PointLocator,
+from fenics_eff_uptake.analysis.profiles import (PointLocator,
                                                      compute_conc_profiles,
                                                      eval_function)
-from fenics_eff_uptake_tpu.meshing.generator import (generate_mesh,
+from fenics_eff_uptake.meshing.generator import (generate_mesh,
                                                      structured_rectangle)
-from fenics_eff_uptake_tpu.models.diffusion import pure_diffusion_solve
+from fenics_eff_uptake.models.diffusion import pure_diffusion_solve
 
 
 @pytest.fixture(scope="module")
@@ -148,7 +148,7 @@ def test_conc_profiles_structure(sulcus_solution):
 
 
 def test_boundary_flux_export(sulcus_solution, tmp_path):
-    from fenics_eff_uptake_tpu.analysis.boundary_export import (
+    from fenics_eff_uptake.analysis.boundary_export import (
         export_boundary_flux_comparison)
     md, c = sulcus_solution
     out = export_boundary_flux_comparison(c, 1.0, 1.0, md, str(tmp_path))
@@ -166,7 +166,7 @@ def test_boundary_flux_export(sulcus_solution, tmp_path):
 def test_batched_metrics_match_per_run(sulcus_solution):
     """The single-dispatch sweep metrics equal the per-run engine."""
     import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.analysis.batched_metrics import (
+    from fenics_eff_uptake.analysis.batched_metrics import (
         build_sweep_metrics, metrics_to_dicts)
     md, c = sulcus_solution
 
@@ -215,9 +215,9 @@ def test_batched_metrics_advective_match_per_run(sulcus_solution):
     """Advective + per-sample D + step-mu batched metrics equal the
     per-run engine column by column."""
     import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.analysis.batched_metrics import (
+    from fenics_eff_uptake.analysis.batched_metrics import (
         build_sweep_metrics, metrics_to_dicts)
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace, Function
+    from fenics_eff_uptake.fem.space import FunctionSpace, Function
     md, c = sulcus_solution
 
     # analytic velocity shared across the batch (need not be physical:

@@ -1,6 +1,6 @@
-"""Banded-dense (MXU) operator form vs the element gather/scatter path.
+"""Banded-dense operator form vs the element gather/scatter path.
 
-The band (ops/banded.py) is the f32 inner-Krylov workhorse on TPU; these
+The band (ops/banded.py) is the optional f32 inner-Krylov operator form; these
 tests pin (a) the RCM permutation round-trip, (b) apply equivalence at
 f32 roundoff, (c) full mixed-precision sweep equivalence with plain
 Jacobi AND with the multigrid V-cycle (banded fine+mid levels, permuted
@@ -13,12 +13,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-from fenics_eff_uptake_tpu.ops.banded import (band_apply,
+from fenics_eff_uptake.meshing.generator import generate_mesh
+from fenics_eff_uptake.ops.banded import (band_apply,
                                               band_from_elements,
                                               build_band_plan,
                                               rcm_permutation)
-from fenics_eff_uptake_tpu.parallel.sweep import (_operator_program,
+from fenics_eff_uptake.parallel.sweep import (_operator_program,
                                                   build_transport_system,
                                                   operator_args,
                                                   solve_sweep,
@@ -112,7 +112,7 @@ def test_sweep_equivalence_jacobi(systems):
 
 def test_sweep_equivalence_multilevel(mesh, systems):
     ref, bnd = systems
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
     mids = [generate_mesh(mesh_size=0.24, **KW),
             generate_mesh(mesh_size=0.45, **KW)]
     mus = np.array([0.1, 1.0, 10.0])
@@ -131,7 +131,7 @@ def test_sweep_equivalence_multilevel(mesh, systems):
 
 def test_sweep_equivalence_advective(mesh):
     # nonsymmetric path: Advband + BiCGStab refinement
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
+    from fenics_eff_uptake.fem.space import FunctionSpace
     V = FunctionSpace(mesh, "P2", vs=2)
     xy = V.dof_coords
     u = np.zeros(V.ndofs)
@@ -153,7 +153,7 @@ def test_sweep_equivalence_advective(mesh):
 def test_step_mu_robin_matrices(mesh):
     # per-sample Robin matrices stay on the element path; solutions in
     # space numbering must match between banded and element systems
-    from fenics_eff_uptake_tpu.parallel.sweep import robin_matrices_for_mu
+    from fenics_eff_uptake.parallel.sweep import robin_matrices_for_mu
     ref = build_transport_system(mesh, pad_shapes=True, band=False)
     bnd = build_transport_system(mesh, pad_shapes=True, band=True)
 
@@ -176,7 +176,7 @@ def test_step_mu_robin_matrices(mesh):
 def test_stokes_banded_equivalence(mesh):
     # banded (RCM-renumbered) velocity block in the MINRES saddle solve:
     # G lift / divergence columns / extraction mapped through iperm
-    from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve_mg
+    from fenics_eff_uptake.models.stokes_flow import stokes_solve_mg
     u1, p1 = stokes_solve_mg(mesh, 1.0, pad_shapes=True)
     u2, p2 = stokes_solve_mg(mesh, 1.0, pad_shapes=False)
     du = float(jnp.abs(u1.values - u2.values).max())
@@ -200,27 +200,8 @@ def test_band_apply_unit():
                                rtol=1e-6)
 
 
-def test_band_apply_pallas_matches_xla():
-    """The Pallas tile-matvec kernel (interpret mode on CPU) must match
-    the XLA shifted-matmul band apply."""
-    from fenics_eff_uptake_tpu.ops.pallas_kernels import band_apply_pallas
-    rng = np.random.default_rng(7)
-    T, R, halo, B = 6, 8, 2, 5
-    W = (2 * halo + 1) * R
-    band = jnp.asarray(rng.standard_normal((T, R, W)), jnp.float32)
-    X = jnp.asarray(rng.standard_normal((T * R, B)), jnp.float32)
-    coef = jnp.asarray(rng.standard_normal(B), jnp.float32)
-    Y0 = band_apply(band, X, coef=coef)
-    Y1 = band_apply_pallas(band, X, coef=coef, interpret=True)
-    scale = float(jnp.abs(Y0).max())
-    assert float(jnp.abs(Y0 - Y1).max()) / scale < 1e-5
-    Y0n = band_apply(band, X)
-    Y1n = band_apply_pallas(band, X, interpret=True)
-    assert float(jnp.abs(Y0n - Y1n).max()) / scale < 1e-5
-
-
 def test_diskcache_roundtrip(tmp_path, monkeypatch):
-    from fenics_eff_uptake_tpu.utils import diskcache as dc
+    from fenics_eff_uptake.utils import diskcache as dc
     monkeypatch.setenv("FEU_CACHE_DIR", str(tmp_path))
     key = dc.cache_key_of(np.arange(5), "tag", None, 3.5)
     calls = []
@@ -243,7 +224,7 @@ def test_diskcache_roundtrip(tmp_path, monkeypatch):
 def test_band_plan_halo_quantized():
     """Halos snap to the fixed menu so band widths (compile-relevant
     shapes) are shared across geometry classes in multi-mesh studies."""
-    from fenics_eff_uptake_tpu.ops.banded import build_band_plan
+    from fenics_eff_uptake.ops.banded import build_band_plan
     # spread 700 would be halo 6 unquantized -> power-of-two menu 8
     # (the menu is deliberately sparse: h=0.02 study meshes straddled
     # adjacent halos and recompiled the full solver stack per class)
@@ -259,9 +240,9 @@ def test_band_plan_halo_quantized():
 def test_best_bandwidth_permutation_prefers_geometric():
     """On an elongated strip the lexicographic sweep must beat RCM (or
     tie); the returned permutation must be a valid bijection."""
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-    from fenics_eff_uptake_tpu.ops.banded import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.fem.space import FunctionSpace
+    from fenics_eff_uptake.ops.banded import (
         best_bandwidth_permutation, rcm_permutation, _spread_of)
     m = generate_mesh(width=10.0, height=1.0, sulcus_depth=0.25,
                       sulcus_width=0.25, mesh_size=0.1,
@@ -294,10 +275,8 @@ def test_rect_band_matches_gather_segment_paths():
     and segment-sum formulations (the V-cycle's reference semantics)."""
     import jax
     import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.ops.banded import (
+    from fenics_eff_uptake.ops.banded import (
         build_rect_band_plan, rect_band_values, rect_band_apply_ref)
-    from fenics_eff_uptake_tpu.ops.pallas_kernels import (
-        rect_band_apply_pallas)
 
     rng = np.random.default_rng(7)
     nf, nc, B = 1024, 273, 5
@@ -313,9 +292,7 @@ def test_rect_band_matches_gather_segment_paths():
     Xq = jnp.pad(Xc, ((0, p.n_cols_pad - nc), (0, 0)))
     want = np.einsum("nk,nkb->nb", w, np.asarray(Xc)[cols])
     got_ref = rect_band_apply_ref(band, jnp.asarray(p.offs), Xq)[:nf]
-    got_pal = rect_band_apply_pallas(band, jnp.asarray(p.offs), Xq)[:nf]
     np.testing.assert_allclose(np.asarray(got_ref), want, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(got_pal), want, atol=2e-5)
 
     # restrict direction: transpose, output sliced to nc
     r = build_rect_band_plan(cols.ravel(), rows, w.ravel(), nc, nf,
@@ -328,15 +305,13 @@ def test_rect_band_matches_gather_segment_paths():
     want_r = np.zeros((nc, B), np.float32)
     np.add.at(want_r, cols.ravel(), contrib)
     got_r = rect_band_apply_ref(band_r, jnp.asarray(r.offs), Xfq)[:nc]
-    got_rp = rect_band_apply_pallas(band_r, jnp.asarray(r.offs), Xfq)[:nc]
     np.testing.assert_allclose(np.asarray(got_r), want_r, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(got_rp), want_r, atol=2e-4)
 
 
 def test_rect_band_plan_rejects_nonlocal():
     """A transfer with no index locality must fall back (None) rather
     than build a monster band."""
-    from fenics_eff_uptake_tpu.ops.banded import build_rect_band_plan
+    from fenics_eff_uptake.ops.banded import build_rect_band_plan
     rng = np.random.default_rng(3)
     nf, nc = 1 << 15, 1 << 14
     rows = np.repeat(np.arange(nf), 3)
@@ -347,9 +322,9 @@ def test_rect_band_plan_rejects_nonlocal():
 
 
 def test_sweep_equivalence_tband(mesh, systems, monkeypatch):
-    """Full ML solve with windowed-band transfers (FEU_ML_TBAND=1,
-    interpret-mode kernel on CPU) must match the gather-path solve."""
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    """Full ML solve with windowed-band transfers (FEU_ML_TBAND=1)
+    must match the gather-path solve."""
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
     _, bnd = systems
     mids = [generate_mesh(mesh_size=0.24, **KW),
             generate_mesh(mesh_size=0.45, **KW)]
@@ -371,12 +346,12 @@ def test_sweep_equivalence_tband(mesh, systems, monkeypatch):
 
 
 def test_sweep_equivalence_tband_bf16(mesh, systems, monkeypatch):
-    """bf16 transfer bands (FEU_ML_TB_BF16=1, the TPU default) change
+    """bf16 transfer bands (FEU_ML_TB_BF16=1) change
     only the preconditioner's internal precision: the f64 defect
     correction still converges to rtol and the solution matches the f32
     gather-path solve.  Rounding P and P^T entrywise from the same
     values keeps restrict == prolong^T, so M stays CG-symmetric."""
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
     _, bnd = systems
     mids = [generate_mesh(mesh_size=0.24, **KW),
             generate_mesh(mesh_size=0.45, **KW)]

@@ -10,9 +10,9 @@ V-cycle uses.
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-from fenics_eff_uptake_tpu.parallel.sweep import build_transport_system
-from fenics_eff_uptake_tpu.solvers.multilevel import (
+from fenics_eff_uptake.meshing.generator import generate_mesh
+from fenics_eff_uptake.parallel.sweep import build_transport_system
+from fenics_eff_uptake.solvers.multilevel import (
     _coarse_inverse_device)
 
 KW = dict(width=10.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,

@@ -1,6 +1,6 @@
 """Line-by-line parity gates on the COMMITTED full-resolution artifacts.
 
-These compare examples/<study>_tpu_h0.02 CSVs (produced on the real TPU
+These compare examples/<study>_h0.02 CSVs (produced on an accelerator
 at the reference's own h=0.02) against the reference's shipped FEniCS
 goldens.  Pure file comparisons -- no simulation -- so they run in
 milliseconds and catch regressions far below the coarse-mesh parity
@@ -29,7 +29,7 @@ def _skip_unless(*paths):
 
 
 def test_advdiff_artifact_vs_fenics_goldens():
-    ours_p = os.path.join(HERE, "examples", "advdiff_tpu_h0.02",
+    ours_p = os.path.join(HERE, "examples", "advdiff_h0.02",
                           "Results Data",
                           "advdiff_validation_step_pe_x_mu.csv")
     ref_p = os.path.join(REF, "Advection-Diffusion", "Results Data",
@@ -60,7 +60,7 @@ def test_advdiff_artifact_vs_fenics_goldens():
 
 
 def test_aspect_ratio_artifact_vs_fenics_goldens():
-    ours_p = os.path.join(HERE, "examples", "phase_a_tpu_h0.02",
+    ours_p = os.path.join(HERE, "examples", "phase_a_h0.02",
                           "Aspect Ratio Study Analysis",
                           "aspect_ratio_analysis_results.csv")
     ref_p = os.path.join(REF, "No Advection - Phase A",
@@ -82,7 +82,7 @@ def test_aspect_ratio_artifact_vs_fenics_goldens():
 
 
 def test_phase_b_artifact_vs_fenics_goldens():
-    ours_p = os.path.join(HERE, "examples", "phase_b_tpu_h0.02",
+    ours_p = os.path.join(HERE, "examples", "phase_b_h0.02",
                           "no_adv_mu_sweep_results.csv")
     ref_p = os.path.join(REF, "No Advection - Phase B",
                         "no_adv_mu_sweep_results.csv")
@@ -107,7 +107,7 @@ def test_phase_b_artifact_vs_fenics_goldens():
 
 
 def test_no_uptake_artifact_vs_fenics_goldens():
-    ours_p = os.path.join(HERE, "examples", "no_uptake_tpu_h0.02",
+    ours_p = os.path.join(HERE, "examples", "no_uptake_h0.02",
                           "Geometry Comparison Analysis",
                           "geometry_comparison_results.csv")
     ref_p = os.path.join(REF, "No Uptake Simulations",

@@ -9,19 +9,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.fem.assembly import (
+from fenics_eff_uptake.fem.assembly import (
     constrained_operator, constrained_rhs, load_vector, make_bc, mass_block,
     robin_facet_block, stiffness_block)
-from fenics_eff_uptake_tpu.fem.elements import tabulate, tabulate_grad
-from fenics_eff_uptake_tpu.fem.quadrature import triangle_rule
-from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-from fenics_eff_uptake_tpu.analysis.integrals import l2_error
-from fenics_eff_uptake_tpu.meshing.generator import structured_rectangle
-from fenics_eff_uptake_tpu.meshing.mesh_data import MARKERS
-from fenics_eff_uptake_tpu.models.diffusion import (build_diffusion_system,
+from fenics_eff_uptake.fem.elements import tabulate, tabulate_grad
+from fenics_eff_uptake.fem.quadrature import triangle_rule
+from fenics_eff_uptake.fem.space import FunctionSpace
+from fenics_eff_uptake.analysis.integrals import l2_error
+from fenics_eff_uptake.meshing.generator import structured_rectangle
+from fenics_eff_uptake.meshing.mesh_data import MARKERS
+from fenics_eff_uptake.models.diffusion import (build_diffusion_system,
                                                     pure_diffusion_solve)
-from fenics_eff_uptake_tpu.ops.elemspmv import SumOperator
-from fenics_eff_uptake_tpu.solvers.cg import cg, jacobi_preconditioner
+from fenics_eff_uptake.ops.elemspmv import SumOperator
+from fenics_eff_uptake.solvers.cg import cg, jacobi_preconditioner
 
 
 def test_partition_of_unity_and_gradients():
@@ -55,8 +55,8 @@ def test_quadrature_exactness():
 def test_p1_stiffness_unit_triangle():
     verts = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])
     cells = np.array([[0, 1, 2]])
-    from fenics_eff_uptake_tpu.meshing.markers import build_mesh_data
-    from fenics_eff_uptake_tpu.meshing.geometry import SulcusGeometry
+    from fenics_eff_uptake.meshing.markers import build_mesh_data
+    from fenics_eff_uptake.meshing.geometry import SulcusGeometry
     geom = SulcusGeometry(1.0, 1.0, 0.0, 0.0, 1.0)
     md = build_mesh_data(verts, cells, geom, "rectangular")
     sp = FunctionSpace(md, "P1")

@@ -4,9 +4,9 @@ import os
 
 import numpy as np
 
-from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-from fenics_eff_uptake_tpu.meshing.geometry import SulcusGeometry
-from fenics_eff_uptake_tpu.meshing.msh_io import (mesh_from_msh2, read_msh2,
+from fenics_eff_uptake.meshing.generator import generate_mesh
+from fenics_eff_uptake.meshing.geometry import SulcusGeometry
+from fenics_eff_uptake.meshing.msh_io import (mesh_from_msh2, read_msh2,
                                                   write_msh2)
 
 
@@ -66,7 +66,7 @@ $EndElements
 def test_msh2_native_matches_python(tmp_path, monkeypatch):
     """The C++ parser (feu_msh2_parse) is bit-identical to the Python spec,
     including non-contiguous node ids, skipped element types, and tags."""
-    from fenics_eff_uptake_tpu.meshing import native
+    from fenics_eff_uptake.meshing import native
     content = """$MeshFormat
 2.2 0 8
 $EndMeshFormat
@@ -115,7 +115,7 @@ def test_msh2_native_refuses_malformed(tmp_path):
     """Truncated/short-line/headerless files must make the native parser
     return None (Python fallback raises) instead of parsing garbage
     across line boundaries (ADVICE r4: unbounded strtod/strtoll)."""
-    from fenics_eff_uptake_tpu.meshing import native
+    from fenics_eff_uptake.meshing import native
     probe = str(tmp_path / "probe.msh")
     with open(probe, "w") as f:
         f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n"
@@ -151,7 +151,7 @@ def test_msh2_native_refuses_malformed(tmp_path):
 
 def test_msh2_native_roundtrip_large(tmp_path):
     """Round-trip a real generated mesh through the native parser."""
-    from fenics_eff_uptake_tpu.meshing import native
+    from fenics_eff_uptake.meshing import native
     md = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.5,
                        sulcus_width=0.5, mesh_size=0.1,
                        refinement_factor=1, domain_type="sulcus")
@@ -166,8 +166,8 @@ def test_msh2_native_roundtrip_large(tmp_path):
 
 
 def test_vtk_writers(tmp_path):
-    from fenics_eff_uptake_tpu.models.diffusion import pure_diffusion_solve
-    from fenics_eff_uptake_tpu.utils.vtk import (write_vtk_cell_scalar,
+    from fenics_eff_uptake.models.diffusion import pure_diffusion_solve
+    from fenics_eff_uptake.utils.vtk import (write_vtk_cell_scalar,
                                                  write_vtk_point_scalar)
     md = generate_mesh(width=2.0, height=1.0, sulcus_depth=0.3,
                        sulcus_width=0.3, mesh_size=0.2,
@@ -184,7 +184,7 @@ def test_vtk_writers(tmp_path):
 
 
 def test_mesh_visualization_export(tmp_path):
-    from fenics_eff_uptake_tpu.meshing.visualization import (
+    from fenics_eff_uptake.meshing.visualization import (
         save_mesh_visualization)
     md = generate_mesh(width=3.0, height=1.0, sulcus_depth=0.4,
                        sulcus_width=0.4, mesh_size=0.2,

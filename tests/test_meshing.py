@@ -7,10 +7,10 @@ assertions the reference lacks (SURVEY.md section 4).
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.meshing.generator import (
+from fenics_eff_uptake.meshing.generator import (
     MeshGenerator, generate_mesh, structured_rectangle)
-from fenics_eff_uptake_tpu.meshing.geometry import SulcusGeometry
-from fenics_eff_uptake_tpu.meshing.mesh_data import MARKERS
+from fenics_eff_uptake.meshing.geometry import SulcusGeometry
+from fenics_eff_uptake.meshing.mesh_data import MARKERS
 
 
 def _boundary_length(md, marker_arr, marker_id):
@@ -162,8 +162,8 @@ def test_interior_sulcus_opening_ds_measure():
     assert (x8 > md.geom.xL + eps).all() and (x8 < md.geom.xR - eps).all()
     # the dS measure over marker 8: total length = mouth width minus the
     # two excluded corner facets
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-    from fenics_eff_uptake_tpu.analysis.facets import build_facet_quad
+    from fenics_eff_uptake.fem.space import FunctionSpace
+    from fenics_eff_uptake.analysis.facets import build_facet_quad
     space = FunctionSpace(md, "P1")
     quad = build_facet_quad(space, s8.cell_plus, s8.local_edge_plus)
     d8 = v[s8.edges[:, 1]] - v[s8.edges[:, 0]]

@@ -7,11 +7,11 @@ import jax
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.meshing.generator import structured_rectangle
-from fenics_eff_uptake_tpu.models.diffusion import pure_diffusion_solve
-from fenics_eff_uptake_tpu.parallel.sharding import (build_sharded_mu_sweep,
+from fenics_eff_uptake.meshing.generator import structured_rectangle
+from fenics_eff_uptake.models.diffusion import pure_diffusion_solve
+from fenics_eff_uptake.parallel.sharding import (build_sharded_mu_sweep,
                                                      make_device_mesh)
-from fenics_eff_uptake_tpu.parallel.sweep import (build_mu_sweep_system,
+from fenics_eff_uptake.parallel.sweep import (build_mu_sweep_system,
                                                   solve_mu_sweep)
 
 
@@ -44,7 +44,7 @@ def test_sharded_sweep_matches_vmapped(mesh):
 
 
 def test_mixed_precision_matches_f64(mesh):
-    from fenics_eff_uptake_tpu.parallel.sweep import (build_transport_system,
+    from fenics_eff_uptake.parallel.sweep import (build_transport_system,
                                                       solve_sweep)
     sys = build_transport_system(mesh)
     mus = [0.5, 2.0]
@@ -55,29 +55,16 @@ def test_mixed_precision_matches_f64(mesh):
     assert np.abs(np.asarray(X64) - np.asarray(Xmx)).max() < 1e-9
 
 
-def test_pallas_element_apply_matches_einsum(mesh, monkeypatch):
-    import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.parallel.sweep import build_transport_system
-    sys_t = build_transport_system(mesh)
-    rng = np.random.RandomState(0)
-    X = jnp.asarray(rng.randn(sys_t.ndofs, 4))
-    coef = jnp.asarray(np.array([0.5, 1.0, 2.0, 3.0]))
-    y_ein = sys_t.K.apply_batched(X, coef=coef)
-    monkeypatch.setenv("FEU_PALLAS", "1")
-    y_pl = sys_t.K.apply_batched(X, coef=coef)
-    assert np.abs(np.asarray(y_ein) - np.asarray(y_pl)).max() < 1e-10
-
-
 def test_production_sharded_solve_matches_vmapped():
     """Chunked MG-preconditioned CG under shard_map == solve_sweep."""
     import numpy as np
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.parallel.sharded_solve import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.parallel.sharded_solve import (
         build_sharded_system, sharded_solve_sweep)
-    from fenics_eff_uptake_tpu.parallel.sharding import make_device_mesh
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.parallel.sharding import make_device_mesh
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, solve_sweep)
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,
               refinement_factor=1, domain_type="sulcus")
@@ -109,11 +96,11 @@ def test_sharded_bicgstab_advective_matches_vmapped():
     operator with psum("cells"), Poiseuille advection, Jacobi M.
     """
     import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.parallel.sharded_solve import (
+    from fenics_eff_uptake.fem.space import FunctionSpace
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.parallel.sharded_solve import (
         build_sharded_system, sharded_solve_sweep)
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, solve_sweep)
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,
@@ -150,14 +137,14 @@ def test_sharded_stokes_matches_single_chip():
     build_sharded_stokes / sharded_stokes_solve): velocity stiffness +
     divergence coupling element-partitioned over "cells" with one fused
     psum per saddle apply, replicated V-cycle mid/coarse levels and
-    Schur deflation.  TPU analogue of the reference's latent MPI Stokes
+    Schur deflation.  Analogue of the reference's latent MPI Stokes
     capability (ref solvers.py:291-298).
     """
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve_mg
-    from fenics_eff_uptake_tpu.parallel.sharded_solve import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.models.stokes_flow import stokes_solve_mg
+    from fenics_eff_uptake.parallel.sharded_solve import (
         build_sharded_stokes, sharded_stokes_solve)
-    from fenics_eff_uptake_tpu.parallel.sharding import make_device_mesh
+    from fenics_eff_uptake.parallel.sharding import make_device_mesh
 
     mesh = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.25,
                          sulcus_width=0.25, mesh_size=0.15,
@@ -189,12 +176,12 @@ def test_sharded_step_mu_robin_matches_vmapped():
     cells-partitioned per-sample Robin entity matrices.
     """
     import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.params import StepUptakeOpen
-    from fenics_eff_uptake_tpu.parallel.sharded_solve import (
+    from fenics_eff_uptake.fem.space import FunctionSpace
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.params import StepUptakeOpen
+    from fenics_eff_uptake.parallel.sharded_solve import (
         build_sharded_system, sharded_solve_sweep)
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, robin_matrices_for_mu, solve_sweep)
 
     m = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.0,
@@ -236,14 +223,14 @@ def test_sharded_step_mu_robin_with_mg_matches_vmapped():
     fine-level per-sample Robin rides the cells-sharded apply (Rbb) and
     the replicated mid-level sub-cycle consumes la.R_batch."""
     import jax.numpy as jnp
-    from fenics_eff_uptake_tpu.fem.space import FunctionSpace
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.params import StepUptakeOpen
-    from fenics_eff_uptake_tpu.parallel.sharded_solve import (
+    from fenics_eff_uptake.fem.space import FunctionSpace
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.params import StepUptakeOpen
+    from fenics_eff_uptake.parallel.sharded_solve import (
         build_sharded_system, sharded_solve_sweep)
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, robin_matrices_for_mu, solve_sweep)
-    from fenics_eff_uptake_tpu.solvers.multilevel import \
+    from fenics_eff_uptake.solvers.multilevel import \
         build_multilevel_for
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.0, sulcus_width=0.0,
@@ -253,7 +240,7 @@ def test_sharded_step_mu_robin_with_mg_matches_vmapped():
     xy = V.dof_coords
     uv = np.zeros(V.ndofs)
     uv[0::2] = 4.0 * xy[:, 1] * (1.0 - xy[:, 1])
-    from fenics_eff_uptake_tpu.fem.space import Function
+    from fenics_eff_uptake.fem.space import Function
     u = Function(V, jnp.asarray(uv))
     sys_t = build_transport_system(m, element="P2", pad_shapes=False,
                                    u_values=u.values, u_space=V)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.params import (Parameters, StepUptakeOpen,
+from fenics_eff_uptake.params import (Parameters, StepUptakeOpen,
                                           create_depth_variations,
                                           create_geometry_variations,
                                           create_width_variations)

@@ -13,13 +13,13 @@ Two tiers:
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.studies.common import (make_no_adv_params,
+from fenics_eff_uptake.studies.common import (make_no_adv_params,
                                                   no_adv_batch)
 
 
 def test_mu_eff_arc_golden():
     """BASELINE.md: mu_eff^arc(w=0.5, h=1.0, L=10) = 1.1594137601849217."""
-    from fenics_eff_uptake_tpu.analysis.mu_eff import compute_mu_eff_arc
+    from fenics_eff_uptake.analysis.mu_eff import compute_mu_eff_arc
 
     class P:
         L, sulci_h, sulci_w, mu = 10.0, 1.0, 0.5, 1.0
@@ -31,7 +31,7 @@ def test_mu_eff_arc_golden():
 def test_mu_eff_enh_golden():
     """Phase-A CSV: Mu_Eff_Enhanced = 0.09788675134594813 at mu*=0.1
     (0.5x1.0 sulcus, L=10)."""
-    from fenics_eff_uptake_tpu.analysis.mu_eff import compute_mu_eff_enh
+    from fenics_eff_uptake.analysis.mu_eff import compute_mu_eff_enh
 
     class P:
         L, sulci_h, sulci_w, mu = 10.0, 1.0, 0.5, 0.1
@@ -55,15 +55,15 @@ def test_mu_eff_sim_vs_golden_moderate_mesh():
 
 def test_phase_b_cr_vs_golden_moderate_mesh():
     """BASELINE.md: Phase-B CR('largest', mu*=0.1) = 0.8757013310084715."""
-    from fenics_eff_uptake_tpu.studies.phase_b import run_no_adv_mu_sweep
+    from fenics_eff_uptake.studies.phase_b import run_no_adv_mu_sweep
     import tempfile
     with tempfile.TemporaryDirectory() as td:
-        df = run_no_adv_mu_sweep(output_base=td, mesh_size_dim=0.08,
-                                 mu_factors=[0.1], geometries=["largest"],
-                                 verbose=False)
-    cr = df["CR"].iloc[0]
+        rows = run_no_adv_mu_sweep(output_base=td, mesh_size_dim=0.08,
+                                   mu_factors=[0.1],
+                                   geometries=["largest"], verbose=False)
+    cr = rows[0]["CR"]
     assert abs(cr - 0.8757013310084715) < 0.02, cr
-    fr = df["flux_ratio"].iloc[0]
+    fr = rows[0]["flux_ratio"]
     assert abs(fr - 0.9582400939212387) < 0.02, fr
 
 
@@ -110,8 +110,9 @@ def test_el1_ladder_certificates_all_agree():
                     # Pinned per family+Pe so any NEW non-certifying
                     # row still fails this gate.
                     key = (r.get("w"), r.get("d"), r.get("pe"))
+                    rate = r.get("observed_rate_p")
                     flat_ok = (key in {(0.4, 2.0, 0.1)}
-                               and r.get("observed_rate_p", 1.0) < 0.2)
+                               and rate is not None and rate < 0.2)
                     assert flat_ok, (path, r["pe"], g, ours1, e_star,
                                      ge, oe)
                     continue

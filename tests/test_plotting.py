@@ -6,15 +6,15 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-from fenics_eff_uptake_tpu.models.diffusion import pure_diffusion_solve
+from fenics_eff_uptake.meshing.generator import generate_mesh
+from fenics_eff_uptake.models.diffusion import pure_diffusion_solve
 
 
 @pytest.fixture(scope="module")
 def sim_results():
-    from fenics_eff_uptake_tpu.analysis.flux import compute_flux_metrics
-    from fenics_eff_uptake_tpu.analysis.mass import compute_mass_metrics
-    from fenics_eff_uptake_tpu.analysis.mu_eff import compute_mu_eff_metrics
+    from fenics_eff_uptake.analysis.flux import compute_flux_metrics
+    from fenics_eff_uptake.analysis.mass import compute_mass_metrics
+    from fenics_eff_uptake.analysis.mu_eff import compute_mu_eff_metrics
     md = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.5,
                        sulcus_width=0.5, mesh_size=0.15,
                        refinement_factor=1, domain_type="sulcus")
@@ -38,7 +38,7 @@ def sim_results():
 
 
 def test_plot_single_simulation(sim_results, tmp_path):
-    from fenics_eff_uptake_tpu.plotting.single import plot_single_simulation
+    from fenics_eff_uptake.plotting.single import plot_single_simulation
     plot_single_simulation(sim_results, str(tmp_path))
     pngs = [f for f in os.listdir(tmp_path) if f.endswith(".png")]
     assert len(pngs) >= 7, pngs
@@ -47,7 +47,7 @@ def test_plot_single_simulation(sim_results, tmp_path):
 
 
 def test_phase_b_heatmaps(tmp_path):
-    from fenics_eff_uptake_tpu.plotting.phase_b_plots import create_heatmaps
+    from fenics_eff_uptake.plotting.phase_b_plots import create_heatmaps
     df = pd.DataFrame({
         "geometry": ["a", "b", "c"] * 2,
         "width_mm": [0.5, 1.0, 0.3] * 2,
@@ -65,7 +65,7 @@ def test_phase_b_heatmaps(tmp_path):
 @pytest.mark.slow  # ~12 s of matplotlib rendering; the faster
 # create_heatmaps test above keeps adv-diff plotting in the fast gate
 def test_advdiff_validation_plots(tmp_path):
-    from fenics_eff_uptake_tpu.plotting.adv_diff_plots import (
+    from fenics_eff_uptake.plotting.adv_diff_plots import (
         create_validation_plots)
     rows = []
     for pe in (0.1, 1.0):
@@ -87,7 +87,7 @@ def test_advdiff_validation_plots(tmp_path):
 
 
 def test_comparison_and_summary(sim_results, tmp_path):
-    from fenics_eff_uptake_tpu.plotting.comparison import (
+    from fenics_eff_uptake.plotting.comparison import (
         plot_configuration_comparison, save_summary)
     rd = {"cfg_a": sim_results, "cfg_b": sim_results}
     plot_configuration_comparison(rd, str(tmp_path))
@@ -105,7 +105,7 @@ def test_comparison_and_summary(sim_results, tmp_path):
 def test_comparison_no_uptake_drops_uptake_panels(sim_results, tmp_path):
     """In no-uptake mode the uptake bar and mu_eff panels are omitted
     (ref plotting.py:793,884,922 early returns)."""
-    from fenics_eff_uptake_tpu.plotting.comparison import (
+    from fenics_eff_uptake.plotting.comparison import (
         plot_flux_comparison, plot_mu_eff_comparison,
         plot_mu_eff_ratios_comparison)
 

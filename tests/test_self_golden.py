@@ -17,7 +17,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
 
 
 def test_self_golden_noadv():
-    from fenics_eff_uptake_tpu.studies.common import (make_no_adv_params,
+    from fenics_eff_uptake.studies.common import (make_no_adv_params,
                                                       no_adv_batch)
     with open(GOLDEN) as f:
         g = json.load(f)

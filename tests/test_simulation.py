@@ -7,11 +7,11 @@ promoted to real assertions.
 import numpy as np
 import pytest
 
-from fenics_eff_uptake_tpu.meshing.generator import structured_rectangle
-from fenics_eff_uptake_tpu.models.advdiff import advdiff_solve
-from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve
-from fenics_eff_uptake_tpu.params import Parameters
-from fenics_eff_uptake_tpu.simulation import run_simulation
+from fenics_eff_uptake.meshing.generator import structured_rectangle
+from fenics_eff_uptake.models.advdiff import advdiff_solve
+from fenics_eff_uptake.models.stokes_flow import stokes_solve
+from fenics_eff_uptake.params import Parameters
+from fenics_eff_uptake.simulation import run_simulation
 
 
 def _coarse_params(mode, **kw):
@@ -41,8 +41,8 @@ def test_stokes_poiseuille_exact():
 
 
 def test_advdiff_zero_velocity_matches_diffusion():
-    from fenics_eff_uptake_tpu.models.diffusion import pure_diffusion_solve
-    from fenics_eff_uptake_tpu.models.stokes_flow import stokes_zero_fields
+    from fenics_eff_uptake.models.diffusion import pure_diffusion_solve
+    from fenics_eff_uptake.models.stokes_flow import stokes_zero_fields
     md = structured_rectangle(2.0, 1.0, 8, 4)
     u0, _ = stokes_zero_fields(md)
     c_ad = advdiff_solve(md, u0, D=0.5, mu=1.0)
@@ -91,8 +91,8 @@ def test_run_simulation_advdiff_rect(tmp_path):
 def test_stokes_mg_matches_schur():
     """MINRES+MG Stokes == Uzawa/Schur Stokes on a sulcus mesh."""
     import numpy as np
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.models.stokes_flow import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.models.stokes_flow import (
         stokes_solve_mg, stokes_solve_schur)
     mesh = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.3,
                          sulcus_width=0.3, mesh_size=0.15,
@@ -114,8 +114,8 @@ def test_stokes_pressure_pin_inconsequential():
     and u by far less -- parity is insensitive to whether the reference's
     pin matched a dof or not."""
     import numpy as np
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve_mg
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.models.stokes_flow import stokes_solve_mg
     mesh = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.3,
                          sulcus_width=0.3, mesh_size=0.15,
                          refinement_factor=1, domain_type="sulcus")
@@ -138,9 +138,9 @@ def test_stokes_pressure_pin_inconsequential():
 def test_advdiff_high_pe_gmres_matches_bicgstab():
     """solver='auto' routes Pe>25 through restarted GMRES; same solution."""
     import numpy as np
-    from fenics_eff_uptake_tpu.meshing.generator import structured_rectangle
-    from fenics_eff_uptake_tpu.models.advdiff import advdiff_solve
-    from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve
+    from fenics_eff_uptake.meshing.generator import structured_rectangle
+    from fenics_eff_uptake.models.advdiff import advdiff_solve
+    from fenics_eff_uptake.models.stokes_flow import stokes_solve
     md = structured_rectangle(2.0, 1.0, 16, 8)
     u, _ = stokes_solve(md, H=1.0)
     Pe = 40.0

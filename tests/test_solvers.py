@@ -21,7 +21,7 @@ def _nonsym(n, seed=0):
 
 
 def test_gmres_vs_direct():
-    from fenics_eff_uptake_tpu.solvers.gmres import gmres
+    from fenics_eff_uptake.solvers.gmres import gmres
     n = 120
     A = _nonsym(n)
     b = np.random.RandomState(2).randn(n)
@@ -33,7 +33,7 @@ def test_gmres_vs_direct():
 
 
 def test_gmres_with_preconditioner():
-    from fenics_eff_uptake_tpu.solvers.gmres import gmres
+    from fenics_eff_uptake.solvers.gmres import gmres
     n = 150
     A = _nonsym(n, seed=5)
     b = np.ones(n)
@@ -46,7 +46,7 @@ def test_gmres_with_preconditioner():
 
 
 def test_batched_bicgstab_vs_direct():
-    from fenics_eff_uptake_tpu.solvers.batched import batched_bicgstab
+    from fenics_eff_uptake.solvers.batched import batched_bicgstab
     n, B = 100, 3
     A = _nonsym(n, seed=7)
     Aj = jnp.asarray(A)
@@ -59,7 +59,7 @@ def test_batched_bicgstab_vs_direct():
 
 def test_batched_cg_partial_convergence_freeze():
     """Columns with very different conditioning converge independently."""
-    from fenics_eff_uptake_tpu.solvers.batched import batched_cg
+    from fenics_eff_uptake.solvers.batched import batched_cg
     n = 80
     A1 = _spd(n, seed=1)
     Aj = jnp.asarray(A1)
@@ -75,10 +75,10 @@ def test_batched_cg_partial_convergence_freeze():
 
 def test_multilevel_preconditioner_matches_jacobi():
     """MG-preconditioned sweep == Jacobi-CG sweep, with far fewer iters."""
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, solve_sweep)
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,
               refinement_factor=1, domain_type="sulcus")
@@ -105,12 +105,12 @@ def test_multilevel_preconditioner_matches_jacobi():
 
 
 def test_multilevel_with_shape_bucketing():
-    """Padded fine + padded MG levels (the TPU study configuration):
+    """Padded fine + padded MG levels (the shape-bucketed study configuration):
     same solution as the unpadded path."""
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, solve_sweep)
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,
               refinement_factor=1, domain_type="sulcus")
@@ -142,10 +142,10 @@ def test_multilevel_nested_level_cuts_iterations():
     level_meshes_for default) must converge in substantially fewer CG
     iterations than the non-nested P2 -> P1(2h) -> P1(4h) ladder, with
     the same solution."""
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, solve_sweep)
-    from fenics_eff_uptake_tpu.solvers.multilevel import build_multilevel
+    from fenics_eff_uptake.solvers.multilevel import build_multilevel
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,
               refinement_factor=1, domain_type="sulcus")
@@ -169,8 +169,8 @@ def test_multilevel_nested_level_cuts_iterations():
 
 
 def test_level_meshes_for_nested_default(monkeypatch):
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.solvers.multilevel import level_meshes_for
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.solvers.multilevel import level_meshes_for
     m = generate_mesh(width=5.0, height=1.0, sulcus_depth=0.25,
                       sulcus_width=0.25, mesh_size=0.1,
                       refinement_factor=1, domain_type="sulcus")
@@ -191,8 +191,8 @@ def test_stokes_coarse_pressure_deflation(monkeypatch):
     Replaces nothing in the reference (its solvers.py:291-298 is a
     direct LU); this pins the iterative path's iteration economy.
     """
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.models.stokes_flow import stokes_solve_mg
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.models.stokes_flow import stokes_solve_mg
 
     mesh = generate_mesh(width=10.0, height=1.0, sulcus_depth=0.25,
                          sulcus_width=0.25, mesh_size=0.12,
@@ -214,8 +214,8 @@ def test_twolevel_fallback_preconditioner():
     """solvers/twolevel.py stays live: passing coarse_mesh (no multilevel)
     to solve_sweep builds the two-level preconditioner fallback and
     converges to the Jacobi answer with fewer iterations."""
-    from fenics_eff_uptake_tpu.meshing.generator import generate_mesh
-    from fenics_eff_uptake_tpu.parallel.sweep import (
+    from fenics_eff_uptake.meshing.generator import generate_mesh
+    from fenics_eff_uptake.parallel.sweep import (
         build_transport_system, solve_sweep)
 
     kw = dict(width=5.0, height=1.0, sulcus_depth=0.25, sulcus_width=0.25,

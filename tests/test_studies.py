@@ -8,7 +8,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fenics_eff_uptake_tpu.simulation import clear_mesh_cache
+from fenics_eff_uptake.simulation import clear_mesh_cache
 
 COARSE = 0.2
 
@@ -20,11 +20,11 @@ def _fresh_cache():
 
 
 def test_phase_b_subset(tmp_path):
-    from fenics_eff_uptake_tpu.studies.phase_b import run_no_adv_mu_sweep
-    df = run_no_adv_mu_sweep(
+    from fenics_eff_uptake.studies.phase_b import run_no_adv_mu_sweep
+    df = pd.DataFrame(run_no_adv_mu_sweep(
         output_base=str(tmp_path), mesh_size_dim=COARSE,
         mu_factors=[0.1, 1.0], geometries=["square_medium", "reference"],
-        verbose=False)
+        verbose=False))
     assert len(df) == 4
     # physics: sulcus absorbs more -> CR < 1; surrogate flux close to sulcus
     assert (df["CR"] < 1.0 + 1e-9).all()
@@ -37,16 +37,16 @@ def test_phase_b_sharded_matches_unsharded(tmp_path, monkeypatch):
     """--shard routes Phase-B solves through the production shard_map
     path; every CSV row must match the single-process run at <=1e-8
     (VERDICT round-2 item 2: study-scale multichip demonstration)."""
-    from fenics_eff_uptake_tpu.studies.phase_b import run_no_adv_mu_sweep
-    df_ref = run_no_adv_mu_sweep(
+    from fenics_eff_uptake.studies.phase_b import run_no_adv_mu_sweep
+    df_ref = pd.DataFrame(run_no_adv_mu_sweep(
         output_base=str(tmp_path / "ref"), mesh_size_dim=COARSE,
-        mu_factors=[0.1, 1.0], geometries=["reference"], verbose=False)
+        mu_factors=[0.1, 1.0], geometries=["reference"], verbose=False))
     clear_mesh_cache()
     monkeypatch.setenv("FEU_SHARD", "8")
     monkeypatch.setenv("FEU_SHARD_TP", "2")
-    df_sh = run_no_adv_mu_sweep(
+    df_sh = pd.DataFrame(run_no_adv_mu_sweep(
         output_base=str(tmp_path / "sh"), mesh_size_dim=COARSE,
-        mu_factors=[0.1, 1.0], geometries=["reference"], verbose=False)
+        mu_factors=[0.1, 1.0], geometries=["reference"], verbose=False))
     assert len(df_sh) == len(df_ref) == 2
     for col in ("CR", "flux_ratio", "avg_conc_sulc", "avg_conc_rect",
                 "flux_sulc_y0", "flux_rect_bottom"):
@@ -57,9 +57,10 @@ def test_phase_b_sharded_matches_unsharded(tmp_path, monkeypatch):
 
 
 def test_phase_a_mu_sweep_small(tmp_path):
-    from fenics_eff_uptake_tpu.studies import phase_a
-    df = phase_a.run_mu_sweep(mesh_size_dim=COARSE,
-                              base_dir=str(tmp_path), verbose=False)
+    from fenics_eff_uptake.studies import phase_a
+    df = pd.DataFrame(phase_a.run_mu_sweep(mesh_size_dim=COARSE,
+                                           base_dir=str(tmp_path),
+                                           verbose=False))
     assert len(df) == 20
     # ratio mu_eff^sim/mu decreases with mu (saturation; BASELINE.md:
     # 1.0185 at 0.1x -> 0.8846 at 150x)
@@ -75,10 +76,11 @@ def test_phase_a_mu_sweep_small(tmp_path):
 
 
 def test_no_uptake_subset(tmp_path):
-    from fenics_eff_uptake_tpu.studies.no_uptake import run_geometry_study
-    df = run_geometry_study(
+    from fenics_eff_uptake.studies.no_uptake import run_geometry_study
+    df = pd.DataFrame(run_geometry_study(
         peclet_numbers=[0.1, 1.0], mesh_size_dim=COARSE,
-        geometries=["square_small"], base_dir=str(tmp_path), verbose=False)
+        geometries=["square_small"], base_dir=str(tmp_path),
+        verbose=False))
     sulc = df[df["Domain"] == "sulcus"]
     rect = df[df["Domain"] == "rectangle"]
     assert len(sulc) == 2 and len(rect) == 2
@@ -93,11 +95,11 @@ def test_no_uptake_subset(tmp_path):
 
 
 def test_advdiff_validation_subset(tmp_path):
-    from fenics_eff_uptake_tpu.studies.adv_diff import (
+    from fenics_eff_uptake.studies.adv_diff import (
         run_advdiff_step_validation)
-    df = run_advdiff_step_validation(
+    df = pd.DataFrame(run_advdiff_step_validation(
         output_base_dir=str(tmp_path), mesh_size_dim=COARSE,
-        pe_values=[1.0], mu_factors=[1.0], verbose=False)
+        pe_values=[1.0], mu_factors=[1.0], verbose=False))
     assert len(df) == 2
     rect = df[df["domain_type"] == "rectangular"].iloc[0]
     sulc = df[df["domain_type"] == "sulcus"].iloc[0]
@@ -110,11 +112,11 @@ def test_advdiff_validation_subset(tmp_path):
 
 
 def test_mesh_convergence_ladder(tmp_path):
-    from fenics_eff_uptake_tpu.studies.mesh_convergence import (
+    from fenics_eff_uptake.studies.mesh_convergence import (
         run_mesh_convergence)
-    df = run_mesh_convergence(mu_factors=(1.0,), ladder=[0.25, 0.18, 0.12],
-                              sulci_w_dim=0.5, sulci_h_dim=0.5,
-                              base_dir=str(tmp_path), verbose=False)
+    df = pd.DataFrame(run_mesh_convergence(
+        mu_factors=(1.0,), ladder=[0.25, 0.18, 0.12], sulci_w_dim=0.5,
+        sulci_h_dim=0.5, base_dir=str(tmp_path), verbose=False))
     assert len(df) == 3
     # mu_eff^sim varies monotonically along the ladder tail and the
     # finest value is closest to the extrapolated/known behaviour
@@ -127,18 +129,18 @@ def test_no_uptake_sharded_matches_unsharded(tmp_path, monkeypatch):
     """--shard routes the no-uptake pipeline (Stokes saddle + Pe
     transport batch) through the production shard_map path; CSV rows
     must match the single-process run at <=1e-8."""
-    from fenics_eff_uptake_tpu.studies.no_uptake import run_geometry_study
-    df_ref = run_geometry_study(
+    from fenics_eff_uptake.studies.no_uptake import run_geometry_study
+    df_ref = pd.DataFrame(run_geometry_study(
         peclet_numbers=[0.1, 10.0], mesh_size_dim=COARSE,
         geometries=["square_small"], base_dir=str(tmp_path / "ref"),
-        verbose=False)
+        verbose=False))
     clear_mesh_cache()
     monkeypatch.setenv("FEU_SHARD", "8")
     monkeypatch.setenv("FEU_SHARD_TP", "2")
-    df_sh = run_geometry_study(
+    df_sh = pd.DataFrame(run_geometry_study(
         peclet_numbers=[0.1, 10.0], mesh_size_dim=COARSE,
         geometries=["square_small"], base_dir=str(tmp_path / "sh"),
-        verbose=False)
+        verbose=False))
     assert len(df_sh) == len(df_ref)
     for col in ("Avg Concentration", "Total Mass", "Mouth E_L1",
                 "Concentration_Ratio"):
@@ -154,17 +156,17 @@ def test_advdiff_sharded_matches_unsharded(tmp_path, monkeypatch):
     """--shard routes the flagship adv-diff study -- including the
     per-sample step-mu(x) Robin surrogate batch -- through the sharded
     path; CSV rows must match the single-process run at <=1e-7."""
-    from fenics_eff_uptake_tpu.studies.adv_diff import (
+    from fenics_eff_uptake.studies.adv_diff import (
         run_advdiff_step_validation)
-    df_ref = run_advdiff_step_validation(
+    df_ref = pd.DataFrame(run_advdiff_step_validation(
         output_base_dir=str(tmp_path / "ref"), mesh_size_dim=COARSE,
-        pe_values=[1.0], mu_factors=[0.1, 10.0], verbose=False)
+        pe_values=[1.0], mu_factors=[0.1, 10.0], verbose=False))
     clear_mesh_cache()
     monkeypatch.setenv("FEU_SHARD", "8")
     monkeypatch.setenv("FEU_SHARD_TP", "2")
-    df_sh = run_advdiff_step_validation(
+    df_sh = pd.DataFrame(run_advdiff_step_validation(
         output_base_dir=str(tmp_path / "sh"), mesh_size_dim=COARSE,
-        pe_values=[1.0], mu_factors=[0.1, 10.0], verbose=False)
+        pe_values=[1.0], mu_factors=[0.1, 10.0], verbose=False))
     assert len(df_sh) == len(df_ref) == 4
     for col in ("total_flux", "uptake_flux", "avg_conc", "mu_eff_open"):
         a = pd.to_numeric(df_ref[col], errors="coerce").to_numpy(float)
